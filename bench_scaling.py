@@ -2,13 +2,13 @@
 """Scaling-efficiency harness: sharded segmentation-DP throughput vs mesh
 size (BASELINE target: >=0.85 efficiency from 1 to N workers).
 
-On real multi-chip slices (SCALING_BACKEND=tpu) this measures ICI-sharded
+On a multi-GPU host (SCALING_BACKEND=cuda) this measures sharded
 throughput directly; loci are embarrassingly parallel, so the measured
 losses are batching/dispatch overheads -- exactly what the efficiency
-target bounds. In this container (one real chip) it falls back to N
-virtual CPU devices, which exercises the identical pjit/sharding program
-but time-shares the host's physical cores: the reported CPU "efficiency"
-is core-contention-bound (a lower bound), not a chip-scaling measurement.
+target bounds. By default it runs on N virtual CPU devices, which
+exercises the identical pjit/sharding program but time-shares the host's
+physical cores: the reported CPU "efficiency" is core-contention-bound (a
+lower bound), not a device-scaling measurement.
 
 Prints one JSON line:
   {"metric": "segdp_scaling_efficiency", "value": eff_at_max,
@@ -37,12 +37,12 @@ import numpy as np  # noqa: E402
 def main():
     import jax
 
-    # Default to the virtual-device CPU mesh (this container has one real
-    # chip); set SCALING_BACKEND=tpu on a real multi-chip slice.
+    # Default to the virtual-device CPU mesh; set SCALING_BACKEND=cuda on
+    # a multi-GPU host.
     jax.config.update("jax_platforms", os.environ.get("SCALING_BACKEND", "cpu"))
 
-    from freddie_tpu.ops.thresholds import ScaledThresholds
-    from freddie_tpu.parallel.mesh import loci_mesh, solve_batch_sharded
+    from freddie_jax.ops.thresholds import ScaledThresholds
+    from freddie_jax.parallel.mesh import loci_mesh, solve_batch_sharded
 
     thr = ScaledThresholds(0.9)
     rng = np.random.default_rng(0)

@@ -59,11 +59,11 @@ WORKER = textwrap.dedent(
             coordinator_address=f"localhost:{port}",
             num_processes=nprocs, process_id=pid)
     import dataclasses
-    from freddie_tpu.config import PipelineConfig
-    from freddie_tpu.parallel.dist import (
+    from freddie_jax.config import PipelineConfig
+    from freddie_jax.parallel.dist import (
         run_isoforms_distributed, owns_tint)
-    from freddie_tpu.stages.cluster import run_cluster
-    from freddie_tpu.stages.segment import run_segment
+    from freddie_jax.stages.cluster import run_cluster
+    from freddie_jax.stages.segment import run_segment
 
     cfg = PipelineConfig()
     cfg = dataclasses.replace(
@@ -162,8 +162,8 @@ def main():
         corpus = os.path.join(workdir, "corpus")
         os.makedirs(corpus)
         bam, fq, n_reads, _truth, _r = bench_mod.build_dataset(corpus)
-        from freddie_tpu.config import SplitConfig
-        from freddie_tpu.stages.split import run_split
+        from freddie_jax.config import SplitConfig
+        from freddie_jax.stages.split import run_split
 
         run_split(bam, [fq], os.path.join(corpus, "split"),
                   SplitConfig(threads=n_cores))

@@ -8,7 +8,7 @@ outputs under out_dir/run/ (per-stage TSV directories + isoforms.gtf),
 then prints a truth-vs-output summary. With real data, skip the
 simulation and point the CLI at your sorted BAM + FASTQ:
 
-    python -m freddie_tpu.cli pipeline -b reads.sorted.bam -r reads.fastq -o out/
+    python -m freddie_jax.cli pipeline -b reads.sorted.bam -r reads.fastq -o out/
 """
 
 import os
@@ -16,8 +16,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from freddie_tpu import PipelineConfig, run_pipeline
-from freddie_tpu.utils.sim import simulate
+from freddie_jax import PipelineConfig, run_pipeline
+from freddie_jax.utils.sim import simulate
 
 
 def main(outdir: str) -> None:

@@ -237,7 +237,7 @@ struct Iv {
 };
 
 // The per-alignment CIGAR walk (the reference's get_intervals,
-// py/freddie_split.py:133-207; mirrored by freddie_tpu/core/cigar.py):
+// py/freddie_split.py:133-207; mirrored by freddie_jax/core/cigar.py):
 // deletions longer than max_del_size become introns (D -> N), each maximal
 // run between introns yields one exonic interval with its exon-consuming
 // ops rendered as text, and empty (target- or query-empty) intervals are

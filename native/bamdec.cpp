@@ -9,7 +9,7 @@
 // native split-stage driver (split_core.cpp).
 //
 // Build: g++ -O2 -shared -fPIC -o libbamdec.so bamdec.cpp split_core.cpp -lz
-// Bindings: freddie_tpu/io/bam_native.py (ctypes).
+// Bindings: freddie_jax/io/bam_native.py (ctypes).
 
 #include <cstdint>
 #include <cstdio>
@@ -108,7 +108,7 @@ long long bamdec_next_batch(
 // per-alignment CIGAR walk (the reference's get_intervals,
 // py/freddie_split.py:133-207) in one pass, returning flat interval
 // arrays. The walk (bamio::walk_intervals) mirrors
-// freddie_tpu/core/cigar.py exactly: deletions longer than max_del_size
+// freddie_jax/core/cigar.py exactly: deletions longer than max_del_size
 // are reclassified as introns, each maximal run between introns becomes
 // one exonic interval with its exon-consuming cigar ops rendered as text,
 // and empty (target- or query-empty) intervals are dropped (the

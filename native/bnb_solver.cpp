@@ -1,6 +1,6 @@
 // Exact branch-and-bound core for the cluster-assignment problem.
 //
-// Native twin of freddie_tpu/solver/exact.py (same algorithm, same
+// Native twin of freddie_jax/solver/exact.py (same algorithm, same
 // deterministic order, bit-identical results): DFS over reads in
 // heaviest-garbage-first order, assign-branch first, admissible lower
 // bound from monotone correction costs, interval pruning of unaligned-gap
@@ -15,7 +15,7 @@
 //
 // Build: g++ -O2 -shared -fPIC -o libbnb.so bnb_solver.cpp
 // ABI: solve_bnb() below; Python binds via ctypes
-// (freddie_tpu/solver/native.py).
+// (freddie_jax/solver/native.py).
 
 #include <algorithm>
 #include <chrono>
@@ -70,7 +70,7 @@ struct Ctx {
   // be assigned in any completion -- the lower bound grants only the best
   // single saving per clique. Conflict-free reads sit in singleton
   // cliques (bound unchanged there). Twin of the identical construction
-  // in freddie_tpu/solver/exact.py; all bound terms are exact multiples
+  // in freddie_jax/solver/exact.py; all bound terms are exact multiples
   // of 0.5 in double, so the twins' node paths stay bit-equal.
   std::vector<int32_t> clique_id;
   int n_cliques;

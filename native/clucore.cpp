@@ -7,7 +7,7 @@
  *                node_budget, closure_max_segs, closure_cap,
  *                bounds_device_min) -> bytes | None
  *
- *     parse the segment TSV (grammar of freddie_tpu/io/tsv.py
+ *     parse the segment TSV (grammar of freddie_jax/io/tsv.py
  *     parse_segment_tsv / native/tsvparse.c, wire format
  *     /root/reference/py/freddie_segment.py:795-835), group read reps,
  *     preprocess (I/C/FL/garbage/polyA virtual gaps,
@@ -16,7 +16,7 @@
  *     loop (py/freddie_cluster.py:694-773) against the in-process
  *     solve_round core (round_solver.cpp, the bit-equal twin of the
  *     solver/two_phase.py chain) and format the cluster TSV byte-
- *     identically to freddie_tpu/io/tsv.py:format_cluster_tsv.
+ *     identically to freddie_jax/io/tsv.py:format_cluster_tsv.
  *
  *     Returns None when ANY round needs a Python-side escalation rung
  *     (solve_round status 2/4/5: segenum/wide/LP/full-search or the
@@ -750,7 +750,7 @@ int run_rounds(TintC& t, const Prep& pp, std::vector<Partition>& parts,
 }
 
 /* ------------------------------------------------------------ format
- * Byte-identical to freddie_tpu/io/tsv.py:format_cluster_tsv (itself
+ * Byte-identical to freddie_jax/io/tsv.py:format_cluster_tsv (itself
  * the reference's writer, py/freddie_cluster.py:639-691). */
 void emit_read_row(std::string& out, const TintC& t, const Prep& pp,
                    int ridx, const char* iid, size_t iid_len,

@@ -1,5 +1,5 @@
 /* floatsig: bit-exact native twin of the segment stage's scipy float
- * surface (freddie_tpu/ops/signal.py; reference calls at
+ * surface (freddie_jax/ops/signal.py; reference calls at
  * /root/reference/py/freddie_segment.py:755,615-621,249-266).
  *
  * Replicates, operation for operation:

@@ -4,7 +4,7 @@
  *     -> [(chrom, start0, text), ...]
  *
  * One call runs a whole tint: parse the cluster TSV
- * (freddie_tpu/io/tsv.py:parse_cluster_tsv; reference
+ * (freddie_jax/io/tsv.py:parse_cluster_tsv; reference
  * py/freddie_isoforms.py:159-200), per-isoform consensus voting
  * (:203-250 incl. the S-tail both-ends quirk), alignment-boundary
  * parsing from the split TSV (:143-156), boundary correction with the

@@ -1,6 +1,6 @@
 /* CPython extension: per-read clip context + gap/polyA token emission.
  *
- * Native twin of freddie_tpu/ops/polya.py's clip_context and emit_tokens
+ * Native twin of freddie_jax/ops/polya.py's clip_context and emit_tokens
  * (reference semantics: py/freddie_segment.py:289-349 target->query
  * mapping, :370-472 token emission). The Python implementations remain
  * the semantic oracles and transparent fallbacks; tests fuzz the two

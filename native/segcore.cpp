@@ -8,7 +8,7 @@
  *     -> (capsule, chrom, tint_id, intervals, n_reads, n_reps,
  *         weights_bytes(int64), [y_raw bytes(float64) per tint interval])
  *     Parses the split TSV + reads TSV (same grammar and assertions as
- *     freddie_tpu/io/tsv.py:parse_split_tsv / load_read_sequences, wire
+ *     freddie_jax/io/tsv.py:parse_split_tsv / load_read_sequences, wire
  *     format /root/reference/py/freddie_split.py:445-481), groups read
  *     representatives (py/freddie_segment.py:163-170), and accumulates the
  *     multiplicity-weighted splice signal per tint interval
@@ -17,7 +17,7 @@
  *
  *   coverage(capsule, iv_idx, cands_list) -> bytes(int64, (P+1)*n_reps)
  *     Cumulative coverage rows at candidate breakpoints -- the exact
- *     integer semantics of freddie_tpu/ops/coverage.py:cumulative_coverage
+ *     integer semantics of freddie_jax/ops/coverage.py:cumulative_coverage
  *     (reference: py/freddie_segment.py:188-246).
  *
  *   finalize(capsule, final_ys, lookup_bytes, scale) -> TSV bytes
@@ -27,7 +27,7 @@
  *     popped trailing column), annotates every read's polyA/gap tokens
  *     (the native/polyatok.c semantics: py/freddie_segment.py:289-472),
  *     and formats the whole segment TSV byte-identically to
- *     freddie_tpu/io/tsv.py:format_segment_tsv.
+ *     freddie_jax/io/tsv.py:format_segment_tsv.
  *
  * The Python implementations remain the semantic oracles and transparent
  * fallbacks; tests/test_segcore.py compares whole-stage outputs

@@ -1,6 +1,6 @@
 // Native split-stage driver: the whole of stage 1 in C++.
 //
-// Replicates freddie_tpu/stages/split.py (itself a reimplementation of the
+// Replicates freddie_jax/stages/split.py (itself a reimplementation of the
 // reference's /root/reference/py/freddie_split.py) byte-for-byte:
 //   - stream the coordinate-sorted BAM, decode records + CIGAR-walk each
 //     alignment into exonic intervals (bam_io.h, py/freddie_split.py:133-207);
@@ -18,7 +18,7 @@
 // change is a parity break.
 //
 // Built into libbamdec.so together with bamdec.cpp (see
-// freddie_tpu/io/bam_native.py).
+// freddie_jax/io/bam_native.py).
 
 #include <errno.h>
 #include <stdlib.h>

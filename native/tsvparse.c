@@ -1,7 +1,7 @@
 /* CPython extension: one-pass split-TSV parsing.
  *
  * Native twin of the header/read-row parsing inside
- * freddie_tpu/io/tsv.py:parse_split_tsv (the wire format is
+ * freddie_jax/io/tsv.py:parse_split_tsv (the wire format is
  * /root/reference/py/freddie_split.py:445-481; the reference re-parses it
  * per stage with compiled regexes, py/freddie_segment.py:17-38). The
  * Python parser dominated the production segment stage's host time
@@ -736,7 +736,7 @@ serror:
 /* ------------------------------------------------------------------ reads
  * load_reads_seqs(path) -> {read_id: seq}
  *
- * Native twin of freddie_tpu/io/tsv.py:load_read_sequences's dict-building
+ * Native twin of freddie_jax/io/tsv.py:load_read_sequences's dict-building
  * loop (wire format: split stage's reads_{contig}_{tint}.tsv rows
  * "id \t chrom \t tint \t seq"). Matches the Python semantics exactly:
  * field 3 is the text between the 3rd tab and the 4th tab or line end

@@ -1,4 +1,4 @@
-"""Minimal pysam-compatible shim backed by freddie_tpu's own BAM codec.
+"""Minimal pysam-compatible shim backed by freddie_jax's own BAM codec.
 
 Lets the *reference* scripts (which import pysam) run in this image so
 their outputs can be byte-compared against ours
@@ -7,7 +7,7 @@ provided: AlignmentFile(path, 'rb').header['SQ'], .fetch(contig=...), the
 record attributes read by py/freddie_split.py, and the CIGAR op constants.
 """
 
-from freddie_tpu.io.bam import (  # noqa: F401
+from freddie_jax.io.bam import (  # noqa: F401
     CDEL,
     CDIFF,
     CEQUAL,
@@ -18,7 +18,7 @@ from freddie_tpu.io.bam import (  # noqa: F401
     CREF_SKIP,
     CSOFT_CLIP,
 )
-from freddie_tpu.io.bam import BamReader as _BamReader
+from freddie_jax.io.bam import BamReader as _BamReader
 
 CBACK = 9
 

@@ -7,9 +7,9 @@ import random
 
 import pytest
 
-from freddie_tpu.io.align import align_reads, minimap2_available, sam_to_sorted_bam
-from freddie_tpu.io.bam import CIGAR_OPS, BamReader
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.io.align import align_reads, minimap2_available, sam_to_sorted_bam
+from freddie_jax.io.bam import CIGAR_OPS, BamReader
+from freddie_jax.utils.sim import simulate
 
 
 def _to_sam(sim) -> list[str]:

@@ -4,8 +4,8 @@ the closure-based candidate set that makes Mi > 26 instances decidable."""
 import numpy as np
 import pytest
 
-from freddie_tpu.solver.audit import audit_instance
-from freddie_tpu.solver.exact import ClusterInstance, ReadRow
+from freddie_jax.solver.audit import audit_instance
+from freddie_jax.solver.exact import ClusterInstance, ReadRow
 from tests.test_dense_conflicts import dense_instance
 from tests.test_solver import random_instance
 

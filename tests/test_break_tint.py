@@ -11,10 +11,10 @@ import sys
 
 import pytest
 
-from freddie_tpu.config import SplitConfig
-from freddie_tpu.io.bam import CMATCH, CREF_SKIP
-from freddie_tpu.stages.split import run_split
-from freddie_tpu.utils.sim import (
+from freddie_jax.config import SplitConfig
+from freddie_jax.io.bam import CMATCH, CREF_SKIP
+from freddie_jax.stages.split import run_split
+from freddie_jax.utils.sim import (
     Simulation,
     SimRead,
     make_gene,

@@ -7,12 +7,12 @@ import os
 
 import pytest
 
-from freddie_tpu.config import ClusterConfig, SegmentConfig, SplitConfig
-from freddie_tpu.solver.clucore import load_clucore
-from freddie_tpu.stages.cluster import run_cluster
-from freddie_tpu.stages.segment import run_segment
-from freddie_tpu.stages.split import run_split
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import ClusterConfig, SegmentConfig, SplitConfig
+from freddie_jax.solver.clucore import load_clucore
+from freddie_jax.stages.cluster import run_cluster
+from freddie_jax.stages.segment import run_segment
+from freddie_jax.stages.split import run_split
+from freddie_jax.utils.sim import simulate
 
 eng = load_clucore()
 pytestmark = pytest.mark.skipif(eng is None, reason="clucore did not build")
@@ -93,14 +93,14 @@ def test_escalation_falls_back(segment_dir, tmp_path, monkeypatch):
     """Forcing the device-bounds gate (status 5) on every closure makes the
     native engine decline; the stage falls back per tint and stays
     byte-identical."""
-    import freddie_tpu.solver.clucore as cc
+    import freddie_jax.solver.clucore as cc
 
     orig = cc.cluster_tint_native
     calls = {"n": 0, "none": 0}
 
     def tiny_gate(in_path, cfg):
         calls["n"] += 1
-        import freddie_tpu.solver.segenum as se
+        import freddie_jax.solver.segenum as se
 
         saved = se.BOUNDS_DEVICE_MIN
         se.BOUNDS_DEVICE_MIN = 1  # any closure escalation -> status 5
@@ -118,7 +118,7 @@ def test_escalation_falls_back(segment_dir, tmp_path, monkeypatch):
     run_cluster(segment_dir, py_out, ClusterConfig())
     monkeypatch.delenv("FREDDIE_CLUCORE")
     monkeypatch.setattr(cc, "cluster_tint_native", tiny_gate)
-    import freddie_tpu.stages.cluster  # noqa: F401  (binds via module attr)
+    import freddie_jax.stages.cluster  # noqa: F401  (binds via module attr)
 
     run_cluster(segment_dir, nat_out, ClusterConfig())
     assert calls["n"] > 0

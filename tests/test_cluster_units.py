@@ -3,9 +3,9 @@
 
 import numpy as np
 
-from freddie_tpu.config import ClusterConfig
-from freddie_tpu.io.tsv import SegRead, SegTint
-from freddie_tpu.stages.cluster import (
+from freddie_jax.config import ClusterConfig
+from freddie_jax.io.tsv import SegRead, SegTint
+from freddie_jax.stages.cluster import (
     first_last_covered,
     informative_segs,
     partition_reads,

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from freddie_tpu.ops.coverage import cumulative_coverage
+from freddie_jax.ops.coverage import cumulative_coverage
 
 
 def naive(starts, ends, reps, n_reps, cands):

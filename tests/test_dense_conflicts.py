@@ -8,13 +8,13 @@ read-DFS optimum under heavy conflict load."""
 import numpy as np
 import pytest
 
-from freddie_tpu.solver.exact import ClusterInstance, ReadRow, solve_exact
-from freddie_tpu.solver.native import (
+from freddie_jax.solver.exact import ClusterInstance, ReadRow, solve_exact
+from freddie_jax.solver.native import (
     native_available,
     solve_exact_native,
     solve_segenum_native,
 )
-from freddie_tpu.solver.segenum import (
+from freddie_jax.solver.segenum import (
     _solve_segment_enum_py,
     solve_segment_enum_wide,
 )
@@ -117,7 +117,7 @@ def test_wide_native_replay_equals_python(seed, monkeypatch):
     dfs = solve_exact(inst, deadline_s=60.0)
     native = solve_segment_enum_wide(inst, dfs.objective, deadline_s=120.0)
     assert native is not None and native.status == "OPTIMAL"
-    import freddie_tpu.solver.native as native_mod
+    import freddie_jax.solver.native as native_mod
 
     monkeypatch.setattr(native_mod, "solve_segenum_list_native", lambda *a, **k: None)
     pure = solve_segment_enum_wide(inst, dfs.objective, deadline_s=120.0)
@@ -131,7 +131,7 @@ def test_wide_native_replay_equals_python(seed, monkeypatch):
 def test_closure_large_mi_matches_dfs_value(seed):
     """Union-closure enumeration on Mi in (26, 45]: same optimum value as
     the read-DFS, constraint-valid assignment, objective reproducible."""
-    from freddie_tpu.solver.segenum import solve_segment_enum_closure
+    from freddie_jax.solver.segenum import solve_segment_enum_closure
 
     rng = np.random.default_rng(seed + 8100)
     M = int(rng.integers(27, 46))
@@ -163,7 +163,7 @@ def test_closure_equals_full_enumeration_canon(seed, monkeypatch):
     path must return the identical canonical answer (objective,
     assignment, AND structure) -- the equivalence proof in its docstring,
     exercised end to end."""
-    import freddie_tpu.solver.segenum as segenum_mod
+    import freddie_jax.solver.segenum as segenum_mod
 
     rng = np.random.default_rng(seed + 8200)
     M = int(rng.integers(8, 14))
@@ -177,7 +177,7 @@ def test_closure_equals_full_enumeration_canon(seed, monkeypatch):
     assert clo.assigned == full.assigned
     assert np.array_equal(np.asarray(clo.isoform), np.asarray(full.isoform))
     # and the Python replay fallback agrees with the native replay
-    import freddie_tpu.solver.native as native_mod
+    import freddie_jax.solver.native as native_mod
 
     monkeypatch.setattr(native_mod, "solve_segenum_list_native", lambda *a, **k: None)
     pure = segenum_mod.solve_segment_enum_closure(inst, deadline_s=120.0)
@@ -192,7 +192,7 @@ def test_closure_gates():
     two-word generalization) is not the closure path's job; small Mi now
     IS (it runs before full enumeration and returns the identical
     canonical result -- test_small_mi_closure)."""
-    from freddie_tpu.solver.segenum import solve_segment_enum_closure
+    from freddie_jax.solver.segenum import solve_segment_enum_closure
 
     rng = np.random.default_rng(5)
     assert solve_segment_enum_closure(dense_instance(rng, 8, 130)) is None
@@ -207,8 +207,8 @@ def test_wide_mi_closure_native_equals_python_replay(seed):
     near-duplicate instances (the shape the two-word rung exists for)."""
     import unittest.mock as mock
 
-    import freddie_tpu.solver.native as native_mod
-    from freddie_tpu.solver.segenum import solve_segment_enum_closure
+    import freddie_jax.solver.native as native_mod
+    from freddie_jax.solver.segenum import solve_segment_enum_closure
 
     rng = np.random.default_rng(seed + 9100)
     mi = int(rng.integers(65, 129))
@@ -229,7 +229,7 @@ def test_wide_mi_closure_native_equals_python_replay(seed):
 def test_small_mi_closure_equals_full_enum():
     """At Mi <= MAX_SEGS the closure path must return exactly what full
     2^Mi enumeration returns (same optimum, same canonical tie-break)."""
-    from freddie_tpu.solver.segenum import (
+    from freddie_jax.solver.segenum import (
         solve_segment_enum,
         solve_segment_enum_closure,
     )

@@ -9,10 +9,10 @@ import os
 import numpy as np
 import pytest
 
-from freddie_tpu.config import SegmentConfig, SplitConfig
-from freddie_tpu.ops.coverage import build_coverage_device, cumulative_coverage
-from freddie_tpu.stages.split import run_split
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import SegmentConfig, SplitConfig
+from freddie_jax.ops.coverage import build_coverage_device, cumulative_coverage
+from freddie_jax.stages.split import run_split
+from freddie_jax.utils.sim import simulate
 
 
 def test_builder_matches_host_differences():
@@ -95,8 +95,8 @@ def test_stage_byte_identical(split_dir, tmp_path, monkeypatch):
     """Whole stage with the device-coverage path FORCED on (device
     dispatch gate at 0) vs forced off: byte-identical TSVs, and the
     builder must actually run."""
-    from freddie_tpu.ops import coverage as cov
-    from freddie_tpu.stages import segment as seg
+    from freddie_jax.ops import coverage as cov
+    from freddie_jax.stages import segment as seg
 
     monkeypatch.setattr(seg, "DEVICE_MIN_WORK", 0)
     monkeypatch.setattr(seg, "DEVICE_COVERAGE_MIN_TINTS", 0)

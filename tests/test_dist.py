@@ -5,10 +5,10 @@ import os
 
 import numpy as np
 
-from freddie_tpu.config import PipelineConfig
-from freddie_tpu.parallel.dist import merge_gtf_records, owns_tint, run_isoforms_distributed
-from freddie_tpu.stages.pipeline import run_pipeline
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import PipelineConfig
+from freddie_jax.parallel.dist import merge_gtf_records, owns_tint, run_isoforms_distributed
+from freddie_jax.stages.pipeline import run_pipeline
+from freddie_jax.utils.sim import simulate
 
 
 def test_owns_tint_partition_is_exact():
@@ -52,9 +52,9 @@ def test_emulated_multihost_isoforms_matches_single(tmp_path):
 def test_sharded_dp_on_mesh_matches_host():
     import jax
 
-    from freddie_tpu.ops.segdp import DPProblem, solve_host
-    from freddie_tpu.ops.thresholds import ScaledThresholds
-    from freddie_tpu.parallel.mesh import loci_mesh, solve_batch_sharded
+    from freddie_jax.ops.segdp import DPProblem, solve_host
+    from freddie_jax.ops.thresholds import ScaledThresholds
+    from freddie_jax.parallel.mesh import loci_mesh, solve_batch_sharded
 
     assert len(jax.devices()) >= 8
     mesh = loci_mesh(8)
@@ -92,15 +92,16 @@ def test_sharded_dp_on_mesh_matches_host():
         assert got == want
 
 
-def test_sharded_pallas_on_mesh_matches_host():
-    """The shard_mapped Pallas path (the production multi-chip TPU
-    engine) must match the host oracle bit-for-bit; interpret mode makes
-    it runnable on the 8-virtual-device CPU test mesh."""
+def test_sharded_chains_wide_weights_match_host():
+    """The production multi-device call (return_chains=True: backpointers
+    walked on device, shard-locally) with wide weights (97, past the
+    7-bit range) must match the host oracle bit for bit on the
+    8-virtual-device CPU mesh."""
     import jax
 
-    from freddie_tpu.ops.segdp import DPProblem, solve_host
-    from freddie_tpu.ops.thresholds import ScaledThresholds
-    from freddie_tpu.parallel.mesh import loci_mesh, solve_batch_sharded
+    from freddie_jax.ops.segdp import DPProblem, collect_batch_device, solve_host
+    from freddie_jax.ops.thresholds import ScaledThresholds
+    from freddie_jax.parallel.mesh import loci_mesh, solve_batch_sharded
 
     assert len(jax.devices()) >= 8
     mesh = loci_mesh(8)
@@ -109,31 +110,21 @@ def test_sharded_pallas_on_mesh_matches_host():
     B, P, R = 16, 12, 16
     C = np.zeros((B, P, R), np.int32)
     y = np.zeros((B, P), np.int32)
-    W = np.full((B, R), 97, np.float32)  # exercise the 7-bit weight split
+    W = np.full((B, R), 97, np.float32)
     n = np.full(B, P, np.int32)
     for b in range(B):
         inc = rng.integers(0, 10, size=(P, R))
         C[b] = np.cumsum(inc, axis=0)
         y[b] = np.sort(rng.choice(np.arange(2000), size=P, replace=False))
-    K, bj, bk = solve_batch_sharded(
+    chains = solve_batch_sharded(
         C, y, W, n, 3, np.asarray(thr.lookup), thr.scale, mesh,
-        use_pallas=True, interpret=True,
+        return_chains=True,
     )
-    K = np.asarray(K)
-    bj = np.asarray(bj)
-    bk = np.asarray(bk)
-    for b in range(B):
-        pr = DPProblem(
-            C=C[b].astype(np.int64), y=y[b].astype(np.int64),
-            W=W[b].astype(np.int64), read_support=3,
-        )
-        want = solve_host(pr, thr)
-        j, k = int(bj[b]), int(bk[b])
-        got = []
-        if j >= 0:
-            got = [j, k]
-            while K[b, j, k] >= 0:
-                k_ = int(K[b, j, k])
-                got.append(k_)
-                j, k = k, k_
-        assert got == want
+    assert chains.shape == (B, P + 2)
+    got = collect_batch_device(chains, list(range(B)), [None] * B)
+    want = [
+        solve_host(DPProblem(C=C[b].astype(np.int64), y=y[b].astype(np.int64),
+                             W=W[b].astype(np.int64), read_support=3), thr)
+        for b in range(B)
+    ]
+    assert got == want

@@ -36,8 +36,8 @@ def _walk(root):
 
 def test_two_process_pipeline_end_to_end(tmp_path):
     sys.path.insert(0, REPO)
-    from freddie_tpu.parallel.dist import owns_tint
-    from freddie_tpu.utils.sim import simulate
+    from freddie_jax.parallel.dist import owns_tint
+    from freddie_jax.utils.sim import simulate
 
     # the 4 simulated tints must split across both processes for the test
     # to exercise genuine shard-owned work on each side
@@ -66,7 +66,7 @@ def test_two_process_pipeline_end_to_end(tmp_path):
                 num_processes=2, process_id=pid,
             )
             sys.path.insert(0, {REPO!r})
-            from freddie_tpu.parallel.dist import run_pipeline_distributed
+            from freddie_jax.parallel.dist import run_pipeline_distributed
             merged = run_pipeline_distributed(
                 {bam!r}, [{fq!r}], {dist_out!r}, log=lambda *a: None,
             )
@@ -91,8 +91,8 @@ def test_two_process_pipeline_end_to_end(tmp_path):
     assert counts[0].split("=")[1] == counts[1].split("=")[1]
 
     # single-process reference run
-    from freddie_tpu.config import PipelineConfig
-    from freddie_tpu.stages.pipeline import run_pipeline
+    from freddie_jax.config import PipelineConfig
+    from freddie_jax.stages.pipeline import run_pipeline
 
     single_out = str(tmp_path / "single")
     run_pipeline(bam, [fq], single_out, PipelineConfig(), log=lambda *a: None)

@@ -32,7 +32,7 @@ def test_two_process_merge(tmp_path):
                 num_processes=2, process_id=pid,
             )
             sys.path.insert(0, {os.path.dirname(os.path.dirname(os.path.abspath(__file__)))!r})
-            from freddie_tpu.parallel.dist import merge_gtf_records
+            from freddie_jax.parallel.dist import merge_gtf_records
             local = [(("chr1", 10 + pid),
                       f"chr1\\tx\\ttranscript\\t{{11 + pid}}\\t100\\t.\\t+\\t.\\tp{{pid}}")]
             merged = merge_gtf_records(local)

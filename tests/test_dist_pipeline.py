@@ -3,10 +3,10 @@ pipeline byte-for-byte."""
 
 import os
 
-from freddie_tpu.config import PipelineConfig
-from freddie_tpu.parallel.dist import run_pipeline_distributed
-from freddie_tpu.stages.pipeline import run_pipeline
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import PipelineConfig
+from freddie_jax.parallel.dist import run_pipeline_distributed
+from freddie_jax.stages.pipeline import run_pipeline
+from freddie_jax.utils.sim import simulate
 
 
 def test_emulated_two_host_pipeline_matches_single(tmp_path):

@@ -8,11 +8,11 @@ import shutil
 
 import pytest
 
-from freddie_tpu.config import ClusterConfig, PipelineConfig
-from freddie_tpu.stages.cluster import run_cluster
-from freddie_tpu.stages.pipeline import run_pipeline
-from freddie_tpu.utils.fsio import MARKER, atomic_write, is_complete
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import ClusterConfig, PipelineConfig
+from freddie_jax.stages.cluster import run_cluster
+from freddie_jax.stages.pipeline import run_pipeline
+from freddie_jax.utils.fsio import MARKER, atomic_write, is_complete
+from freddie_jax.utils.sim import simulate
 
 
 @pytest.fixture(scope="module")
@@ -123,7 +123,7 @@ def test_cluster_pool_degrades_to_threads(pipe, tmp_path, monkeypatch):
     the final outputs byte-identical to a healthy run."""
     from concurrent.futures.process import BrokenProcessPool
 
-    import freddie_tpu.stages.cluster as cl
+    import freddie_jax.stages.cluster as cl
 
     _bam, _fq, out = pipe
     seg_dir = os.path.join(out, "segment")
@@ -160,9 +160,9 @@ def test_solver_timeout_routes_reads_to_garbage(pipe, monkeypatch):
     """The reference's Gurobi TimeLimit -> non-OPTIMAL -> garbage semantics
     (py/freddie_cluster.py:750-751,767-773): a solver that cannot prove
     optimality must stop the round loop and recycle the partition."""
-    from freddie_tpu.io.tsv import parse_segment_tsv
-    from freddie_tpu.solver.exact import SolveResult
-    from freddie_tpu.stages import cluster as cl
+    from freddie_jax.io.tsv import parse_segment_tsv
+    from freddie_jax.solver.exact import SolveResult
+    from freddie_jax.stages import cluster as cl
 
     _bam, _fq, out = pipe
     seg_dir = os.path.join(out, "segment")
@@ -214,7 +214,7 @@ def test_stage_retry_orchestration(pipe, tmp_path, monkeypatch):
     rule-retry analog): a transiently failing segment stage succeeds on
     the second attempt and the pipeline completes normally; with
     retries=0 the same fault propagates."""
-    from freddie_tpu.stages import pipeline as pl
+    from freddie_jax.stages import pipeline as pl
 
     bam, fq, out = pipe
     calls = {"n": 0}

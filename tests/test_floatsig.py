@@ -8,8 +8,8 @@ import os
 import numpy as np
 import pytest
 
-from freddie_tpu.ops.floatsig import gaussian_kernel, load_floatsig
-from freddie_tpu.ops import signal as sig
+from freddie_jax.ops.floatsig import gaussian_kernel, load_floatsig
+from freddie_jax.ops import signal as sig
 
 eng = load_floatsig()
 pytestmark = pytest.mark.skipif(eng is None, reason="no C toolchain")
@@ -123,10 +123,10 @@ def test_variance_threshold_matches_list_comprehension():
 def test_segment_stage_byte_identical(tmp_path, monkeypatch):
     """Whole segment stage with the native float surface vs FREDDIE_FLOATSIG=0
     (pure scipy) -> byte-identical TSVs."""
-    from freddie_tpu.config import SegmentConfig, SplitConfig
-    from freddie_tpu.stages import segment as seg
-    from freddie_tpu.stages.split import run_split
-    from freddie_tpu.utils.sim import simulate
+    from freddie_jax.config import SegmentConfig, SplitConfig
+    from freddie_jax.stages import segment as seg
+    from freddie_jax.stages.split import run_split
+    from freddie_jax.utils.sim import simulate
 
     sim = simulate(
         seed=79, n_genes=6, isoforms_per_gene=3, reads_per_isoform=12,

@@ -17,9 +17,9 @@ import shutil
 
 import pytest
 
-from freddie_tpu.config import PipelineConfig
-from freddie_tpu.stages.pipeline import run_pipeline
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import PipelineConfig
+from freddie_jax.stages.pipeline import run_pipeline
+from freddie_jax.utils.sim import simulate
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 

@@ -3,7 +3,7 @@
 import os
 import random
 
-from freddie_tpu.io.bam import (
+from freddie_jax.io.bam import (
     BamReader,
     BamRecord,
     BamWriter,
@@ -12,8 +12,8 @@ from freddie_tpu.io.bam import (
     CSOFT_CLIP,
     FLAG_REVERSE,
 )
-from freddie_tpu.io.bgzf import BgzfReader, BgzfWriter
-from freddie_tpu.io.fastx import read_fastx, write_fastq
+from freddie_jax.io.bgzf import BgzfReader, BgzfWriter
+from freddie_jax.io.fastx import read_fastx, write_fastq
 
 
 def test_bgzf_roundtrip(tmp_path):

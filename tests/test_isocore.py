@@ -6,15 +6,15 @@ import os
 
 import pytest
 
-from freddie_tpu.config import (
+from freddie_jax.config import (
     ClusterConfig, IsoformsConfig, SegmentConfig, SplitConfig,
 )
-from freddie_tpu.ops.isocore import load_isocore
-from freddie_tpu.stages.cluster import run_cluster
-from freddie_tpu.stages.isoforms import run_isoforms
-from freddie_tpu.stages.segment import run_segment
-from freddie_tpu.stages.split import run_split
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.ops.isocore import load_isocore
+from freddie_jax.stages.cluster import run_cluster
+from freddie_jax.stages.isoforms import run_isoforms
+from freddie_jax.stages.segment import run_segment
+from freddie_jax.stages.split import run_split
+from freddie_jax.utils.sim import simulate
 
 eng = load_isocore()
 pytestmark = pytest.mark.skipif(eng is None, reason="isocore did not build")
@@ -69,7 +69,7 @@ def test_gtf_byte_identical(staged, tmp_path, monkeypatch, cfg):
 
 def test_error_falls_back(staged, tmp_path, monkeypatch):
     """A native-side failure degrades to the Python path per tint."""
-    import freddie_tpu.ops.isocore as ic
+    import freddie_jax.ops.isocore as ic
 
     split, clu = staged
     monkeypatch.setenv("FREDDIE_ISOCORE", "0")
@@ -83,7 +83,7 @@ def test_error_falls_back(staged, tmp_path, monkeypatch):
     monkeypatch.setattr(ic, "tint_gtf_native", explode)
     # stages.isoforms imports the symbol per call, so the patch must be
     # applied to the module attr it resolves.
-    import freddie_tpu.stages.isoforms  # noqa: F401
+    import freddie_jax.stages.isoforms  # noqa: F401
 
     nat_gtf = str(tmp_path / "nat.gtf")
     run_isoforms(split, clu, nat_gtf, IsoformsConfig())

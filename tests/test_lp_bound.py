@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from freddie_tpu.solver.brute import brute_force_optimum
-from freddie_tpu.solver.exact import solve_exact
-from freddie_tpu.solver.lp_bound import lp_lower_bound
-from freddie_tpu.solver.two_phase import solve_two_phase
+from freddie_jax.solver.brute import brute_force_optimum
+from freddie_jax.solver.exact import solve_exact
+from freddie_jax.solver.lp_bound import lp_lower_bound
+from freddie_jax.solver.two_phase import solve_two_phase
 from tests.test_solver import random_instance
 
 
@@ -37,7 +37,7 @@ def test_two_phase_matches_plain(seed):
 
 def test_two_phase_with_tiny_budget(monkeypatch):
     # Force the budget path so the LP gets exercised on a solvable case.
-    import freddie_tpu.solver.two_phase as tp
+    import freddie_jax.solver.two_phase as tp
 
     rng = np.random.default_rng(77)
     inst = random_instance(rng, 20, 30)

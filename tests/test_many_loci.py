@@ -3,9 +3,9 @@ full pipeline. Exercises the simulator's genome auto-growth (gene layout
 past the initial contig length), per-contig multi-tint routing, and the
 solver under a wide spread of instance sizes in one run."""
 
-from freddie_tpu.config import PipelineConfig
-from freddie_tpu.stages.pipeline import run_pipeline
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import PipelineConfig
+from freddie_jax.stages.pipeline import run_pipeline
+from freddie_jax.utils.sim import simulate
 
 
 def test_forty_gene_pipeline(tmp_path):

@@ -3,10 +3,10 @@ each contig yields its own tints and GTF records."""
 
 import random
 
-from freddie_tpu.config import PipelineConfig
-from freddie_tpu.io.bam import BamRecord, BamWriter, FLAG_REVERSE
-from freddie_tpu.stages.pipeline import run_pipeline
-from freddie_tpu.utils.sim import (
+from freddie_jax.config import PipelineConfig
+from freddie_jax.io.bam import BamRecord, BamWriter, FLAG_REVERSE
+from freddie_jax.stages.pipeline import run_pipeline
+from freddie_jax.utils.sim import (
     Simulation,
     make_gene,
     make_isoforms,

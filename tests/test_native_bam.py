@@ -2,9 +2,9 @@
 
 import pytest
 
-from freddie_tpu.io.bam import BamReader
-from freddie_tpu.io.bam_native import NativeBamReader, native_bam_available
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.io.bam import BamReader
+from freddie_jax.io.bam_native import NativeBamReader, native_bam_available
+from freddie_jax.utils.sim import simulate
 
 pytestmark = pytest.mark.skipif(
     not native_bam_available(), reason="no C++ toolchain available"
@@ -45,8 +45,8 @@ def test_interval_batch_matches_python_walk(tmp_path):
     """bamdec_next_batch_iv's CIGAR walk == core.cigar.alignment_intervals
     (values and rendered cigar strings), including D>20 -> N rewrites and
     the empty-interval filter."""
-    from freddie_tpu.core.cigar import alignment_intervals, cigar_to_str
-    from freddie_tpu.io.bam_native import iter_interval_records
+    from freddie_jax.core.cigar import alignment_intervals, cigar_to_str
+    from freddie_jax.io.bam_native import iter_interval_records
 
     sim = simulate(seed=12, n_genes=2, isoforms_per_gene=3, reads_per_isoform=9,
                    minus_strand_genes=True, truncate_prob=0.3)
@@ -85,9 +85,9 @@ def test_split_native_ingest_byte_identical(tmp_path, monkeypatch):
     import filecmp
     import os
 
-    from freddie_tpu.config import SplitConfig
-    from freddie_tpu.io import bam_native
-    from freddie_tpu.stages.split import run_split
+    from freddie_jax.config import SplitConfig
+    from freddie_jax.io import bam_native
+    from freddie_jax.stages.split import run_split
 
     monkeypatch.setenv("FREDDIE_SPLIT_ENGINE", "python")
     sim = simulate(seed=17)

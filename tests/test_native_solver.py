@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from freddie_tpu.solver.exact import solve_exact
-from freddie_tpu.solver.native import native_available, solve_exact_native
+from freddie_jax.solver.exact import solve_exact
+from freddie_jax.solver.native import native_available, solve_exact_native
 from tests.test_solver import random_instance
 
 pytestmark = pytest.mark.skipif(
@@ -29,7 +29,7 @@ def test_native_matches_python(seed):
 
 
 def test_native_empty():
-    from freddie_tpu.solver.exact import ClusterInstance
+    from freddie_jax.solver.exact import ClusterInstance
 
     inst = ClusterInstance(rows=[], seg_len=np.array([1]), incomp=[])
     nat = solve_exact_native(inst)

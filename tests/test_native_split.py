@@ -9,10 +9,10 @@ import os
 
 import pytest
 
-from freddie_tpu.config import SplitConfig
-from freddie_tpu.io.bam_native import native_split_available
-from freddie_tpu.stages.split import run_split
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import SplitConfig
+from freddie_jax.io.bam_native import native_split_available
+from freddie_jax.stages.split import run_split
+from freddie_jax.utils.sim import simulate
 
 pytestmark = pytest.mark.skipif(
     not native_split_available(), reason="no C++ toolchain"

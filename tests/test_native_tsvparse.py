@@ -5,7 +5,7 @@ acceptance never depends on the toolchain)."""
 
 import pytest
 
-from freddie_tpu.io.tsv import (
+from freddie_jax.io.tsv import (
     _load_tsvparse,
     _parse_split_tsv_py,
     parse_split_tsv,
@@ -52,9 +52,9 @@ def test_equal_on_simulated(tmp_path):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from freddie_tpu.config import SplitConfig
-    from freddie_tpu.stages.split import run_split
-    from freddie_tpu.utils.sim import simulate
+    from freddie_jax.config import SplitConfig
+    from freddie_jax.stages.split import run_split
+    from freddie_jax.utils.sim import simulate
 
     sim = simulate(seed=303, n_genes=3, isoforms_per_gene=2,
                    reads_per_isoform=25, indel_rate=0.1, end_jitter=15)
@@ -79,11 +79,11 @@ def test_segment_parser_equal_on_simulated(tmp_path):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from freddie_tpu.config import SegmentConfig, SplitConfig
-    from freddie_tpu.io.tsv import _parse_segment_tsv_py, parse_segment_tsv
-    from freddie_tpu.stages.segment import run_segment
-    from freddie_tpu.stages.split import run_split
-    from freddie_tpu.utils.sim import simulate
+    from freddie_jax.config import SegmentConfig, SplitConfig
+    from freddie_jax.io.tsv import _parse_segment_tsv_py, parse_segment_tsv
+    from freddie_jax.stages.segment import run_segment
+    from freddie_jax.stages.split import run_split
+    from freddie_jax.utils.sim import simulate
 
     sim = simulate(seed=404, n_genes=4, isoforms_per_gene=2,
                    reads_per_isoform=30, indel_rate=0.1, end_jitter=20,
@@ -118,7 +118,7 @@ def test_segment_parser_equal_on_simulated(tmp_path):
 def test_segment_parser_malformed_falls_back(tmp_path):
     """A gaps field the regex parser would scan permissively makes the C
     parser raise; the wrapper must return the Python parser's result."""
-    from freddie_tpu.io.tsv import _parse_segment_tsv_py, parse_segment_tsv
+    from freddie_jax.io.tsv import _parse_segment_tsv_py, parse_segment_tsv
 
     text = (
         "#chr1\t1\t100,200,300\t\n"
@@ -140,7 +140,7 @@ def test_split_parser_mutation_fuzz(tmp_path):
     results."""
     import numpy as np
 
-    from freddie_tpu.io.tsv import _parse_split_tsv_py, parse_split_tsv
+    from freddie_jax.io.tsv import _parse_split_tsv_py, parse_split_tsv
 
     rng = np.random.default_rng(99)
     base = GOOD
@@ -181,7 +181,7 @@ def test_segment_parser_mutation_fuzz(tmp_path):
     """Same single-edit fuzz for the segment-TSV parser."""
     import numpy as np
 
-    from freddie_tpu.io.tsv import _parse_segment_tsv_py, parse_segment_tsv
+    from freddie_jax.io.tsv import _parse_segment_tsv_py, parse_segment_tsv
 
     base = (
         "#chr1\t3\t100,200,350,500\n"

@@ -8,10 +8,10 @@ import sys
 
 import pytest
 
-from freddie_tpu.config import PipelineConfig, SplitConfig
-from freddie_tpu.stages.pipeline import run_pipeline
-from freddie_tpu.stages.split import run_split
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import PipelineConfig, SplitConfig
+from freddie_jax.stages.pipeline import run_pipeline
+from freddie_jax.stages.split import run_split
+from freddie_jax.utils.sim import simulate
 
 REF = "/root/reference/py"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

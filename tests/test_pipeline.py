@@ -6,9 +6,9 @@ import os
 
 import pytest
 
-from freddie_tpu.config import PipelineConfig
-from freddie_tpu.stages.pipeline import run_pipeline
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import PipelineConfig
+from freddie_jax.stages.pipeline import run_pipeline
+from freddie_jax.utils.sim import simulate
 
 
 def parse_gtf(path):
@@ -80,11 +80,11 @@ def test_cluster_process_pool_byte_identical(tmp_path, monkeypatch):
     biggest-first scheduling) == serial, byte for byte, per tint file."""
     import filecmp
 
-    from freddie_tpu.config import ClusterConfig, SegmentConfig, SplitConfig
-    from freddie_tpu.stages import cluster as cl
-    from freddie_tpu.stages.segment import run_segment
-    from freddie_tpu.stages.split import run_split
-    from freddie_tpu.utils.sim import simulate
+    from freddie_jax.config import ClusterConfig, SegmentConfig, SplitConfig
+    from freddie_jax.stages import cluster as cl
+    from freddie_jax.stages.segment import run_segment
+    from freddie_jax.stages.split import run_split
+    from freddie_jax.utils.sim import simulate
 
     sim = simulate(seed=31, n_genes=4, isoforms_per_gene=2, reads_per_isoform=8,
                    minus_strand_genes=True, truncate_prob=0.2, tail_prob=0.8)
@@ -111,13 +111,13 @@ def test_isoforms_process_pool_byte_identical(tmp_path):
     """isoforms -t N (process pool over tints) == serial, byte for byte."""
     import filecmp
 
-    from freddie_tpu.config import (ClusterConfig, IsoformsConfig,
+    from freddie_jax.config import (ClusterConfig, IsoformsConfig,
                                     SegmentConfig, SplitConfig)
-    from freddie_tpu.stages.cluster import run_cluster
-    from freddie_tpu.stages.isoforms import run_isoforms
-    from freddie_tpu.stages.segment import run_segment
-    from freddie_tpu.stages.split import run_split
-    from freddie_tpu.utils.sim import simulate
+    from freddie_jax.stages.cluster import run_cluster
+    from freddie_jax.stages.isoforms import run_isoforms
+    from freddie_jax.stages.segment import run_segment
+    from freddie_jax.stages.split import run_split
+    from freddie_jax.utils.sim import simulate
 
     sim = simulate(seed=29, n_genes=4, isoforms_per_gene=2, reads_per_isoform=8,
                    minus_strand_genes=True, truncate_prob=0.2, tail_prob=0.8)

@@ -3,9 +3,9 @@
 
 import os
 
-from freddie_tpu.config import PipelineConfig
-from freddie_tpu.stages.pipeline import run_pipeline
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import PipelineConfig
+from freddie_jax.stages.pipeline import run_pipeline
+from freddie_jax.utils.sim import simulate
 from tests.test_pipeline import parse_gtf
 
 

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from freddie_tpu.ops.polya import longest_poly_runs
-from freddie_tpu.ops.polya_batch import best_poly_batch
+from freddie_jax.ops.polya import longest_poly_runs
+from freddie_jax.ops.polya_batch import best_poly_batch
 
 
 def host_best(window: str, char: str):
@@ -72,15 +72,15 @@ def test_long_window_fallback():
 def test_annotate_batch_matches_host_per_read():
     """annotate_gaps_and_polya_batch == annotate_gaps_and_polya on
     simulated tints (both strands, noisy soft clips)."""
-    from freddie_tpu.config import SegmentConfig, SplitConfig
-    from freddie_tpu.ops.polya import annotate_gaps_and_polya
-    from freddie_tpu.ops.polya_batch import annotate_gaps_and_polya_batch
-    from freddie_tpu.ops.segdp import DPProblem  # noqa: F401 (import check)
-    from freddie_tpu.ops.thresholds import ScaledThresholds
-    from freddie_tpu.stages.segment import genotype_tint, prepare_tint, solve_problems
-    from freddie_tpu.io.tsv import parse_split_tsv, load_read_sequences
-    from freddie_tpu.stages.split import run_split
-    from freddie_tpu.utils.sim import simulate
+    from freddie_jax.config import SegmentConfig, SplitConfig
+    from freddie_jax.ops.polya import annotate_gaps_and_polya
+    from freddie_jax.ops.polya_batch import annotate_gaps_and_polya_batch
+    from freddie_jax.ops.segdp import DPProblem  # noqa: F401 (import check)
+    from freddie_jax.ops.thresholds import ScaledThresholds
+    from freddie_jax.stages.segment import genotype_tint, prepare_tint, solve_problems
+    from freddie_jax.io.tsv import parse_split_tsv, load_read_sequences
+    from freddie_jax.stages.split import run_split
+    from freddie_jax.utils.sim import simulate
     import os
     import tempfile
 
@@ -154,7 +154,7 @@ def test_long_window_vectorized_fallback_fuzz():
     """The numpy column-sweep twin (_scan_np) handles every window above
     MAX_WINDOW; pin it to the per-window host scorer across many lengths,
     purities and both scan chars (incl. rows chunked past one batch)."""
-    from freddie_tpu.ops.polya_batch import MAX_WINDOW
+    from freddie_jax.ops.polya_batch import MAX_WINDOW
 
     rng = np.random.default_rng(11)
     windows, chars = [], []

@@ -4,7 +4,7 @@ cases (multi-run reads, slack gaps, insertion-clamp quirk)."""
 
 import pytest
 
-from freddie_tpu.ops.polya import (
+from freddie_jax.ops.polya import (
     _clip_context_py,
     _emit_tokens_py,
     _load_ctok,
@@ -23,16 +23,16 @@ def test_simulated_reads_identical(tmp_path):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from freddie_tpu.config import SegmentConfig, SplitConfig
-    from freddie_tpu.io.tsv import load_read_sequences, parse_split_tsv
-    from freddie_tpu.ops.thresholds import ScaledThresholds
-    from freddie_tpu.stages.segment import (
+    from freddie_jax.config import SegmentConfig, SplitConfig
+    from freddie_jax.io.tsv import load_read_sequences, parse_split_tsv
+    from freddie_jax.ops.thresholds import ScaledThresholds
+    from freddie_jax.stages.segment import (
         genotype_tint,
         prepare_tint,
         solve_problems,
     )
-    from freddie_tpu.stages.split import run_split
-    from freddie_tpu.utils.sim import simulate
+    from freddie_jax.stages.split import run_split
+    from freddie_jax.utils.sim import simulate
 
     sim = simulate(seed=61, n_genes=3, isoforms_per_gene=2,
                    reads_per_isoform=30, indel_rate=0.12, end_jitter=20,
@@ -89,7 +89,7 @@ def test_insertion_clamp_quirk():
     """walk_cigar_to clamps every op (including insertions) by the
     remaining target distance -- the C twin must reproduce the resulting
     query positions exactly."""
-    from freddie_tpu.io.bam import CIGAR_OP_CODE as OP
+    from freddie_jax.io.bam import CIGAR_OP_CODE as OP
 
     # interval: target 100..120, query 0..30, cigar 10M 10I 10M
     cigar = [(OP["M"], 10), (OP["I"], 10), (OP["M"], 10)]
@@ -116,7 +116,7 @@ def test_best_run_fuzz_vs_python_oracle():
     must equal the float compare)."""
     import numpy as np
 
-    from freddie_tpu.ops.polya import _best_poly, _best_poly_py, _load_ctok
+    from freddie_jax.ops.polya import _best_poly, _best_poly_py, _load_ctok
 
     mod = _load_ctok()
     if mod is None or not hasattr(mod, "best_run"):

@@ -99,7 +99,7 @@ CONFIGS = {
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def fixture(request, tmp_path_factory):
-    from freddie_tpu.utils.sim import simulate
+    from freddie_jax.utils.sim import simulate
 
     d = tmp_path_factory.mktemp(f"refparity_{request.param}")
     kwargs = dict(CONFIGS[request.param])
@@ -123,8 +123,8 @@ def both_splits(fixture):
         ref_args.insert(0, "--consider-nonspliced")
     run_reference("freddie_split.py", ref_args)
 
-    from freddie_tpu.config import SplitConfig
-    from freddie_tpu.stages.split import run_split
+    from freddie_jax.config import SplitConfig
+    from freddie_jax.stages.split import run_split
 
     our_split = str(d / "our_split")
     run_split(bam, [fq], our_split,
@@ -168,8 +168,8 @@ def both_segments(both_splits):
         ref_args += ["--consider-ends", "True"]
     run_reference("freddie_segment.py", ref_args)
 
-    from freddie_tpu.config import SegmentConfig
-    from freddie_tpu.stages.segment import run_segment
+    from freddie_jax.config import SegmentConfig
+    from freddie_jax.stages.segment import run_segment
 
     our_seg = str(d / "our_segment")
     run_segment(our_split, our_seg,
@@ -190,9 +190,9 @@ def test_segment_outputs_identical(both_segments):
 
 def test_isoforms_stage_matches_reference(both_segments, tmp_path_factory):
     d, ref_split, our_split, ref_seg, our_seg = both_segments
-    from freddie_tpu.config import ClusterConfig, IsoformsConfig
-    from freddie_tpu.stages.cluster import run_cluster
-    from freddie_tpu.stages.isoforms import run_isoforms
+    from freddie_jax.config import ClusterConfig, IsoformsConfig
+    from freddie_jax.stages.cluster import run_cluster
+    from freddie_jax.stages.isoforms import run_isoforms
 
     our_cluster = str(d / "our_cluster")
     run_cluster(our_seg, our_cluster, ClusterConfig())

@@ -6,10 +6,10 @@ OPTIMAL, BUDGET -> closure declined -> later rungs)."""
 import numpy as np
 import pytest
 
-import freddie_tpu.solver.native as native_mod
-import freddie_tpu.solver.segenum as segenum_mod
-import freddie_tpu.solver.two_phase as tp
-from freddie_tpu.solver.native import native_available, solve_round_native
+import freddie_jax.solver.native as native_mod
+import freddie_jax.solver.segenum as segenum_mod
+import freddie_jax.solver.two_phase as tp
+from freddie_jax.solver.native import native_available, solve_round_native
 from tests.test_solver import random_instance
 
 pytestmark = pytest.mark.skipif(
@@ -232,7 +232,7 @@ def test_wide_mi_closure_objective_is_optimal(seed, monkeypatch):
     """The two-word closure's objective equals the unbudgeted exact
     read-DFS optimum (engines may tie-break differently among equally
     optimal solutions; the objective is the optimality witness)."""
-    from freddie_tpu.solver.exact import solve_exact
+    from freddie_jax.solver.exact import solve_exact
 
     monkeypatch.setattr(tp, "NODE_BUDGET", 5)
     rng = np.random.default_rng(seed + 5500)
@@ -266,8 +266,8 @@ def test_device_bounds_match_host_and_gate_roundtrip(monkeypatch):
     loop, and the closure_device escalation (C++ defers, Python re-runs
     the closure with device bounds) must return exactly what the
     all-native path returns."""
-    import freddie_tpu.solver.segenum as se
-    from freddie_tpu.solver.segenum import (
+    import freddie_jax.solver.segenum as se
+    from freddie_jax.solver.segenum import (
         _PerStructure,
         _optimistic_masks_device,
     )

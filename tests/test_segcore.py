@@ -8,10 +8,10 @@ import os
 import numpy as np
 import pytest
 
-from freddie_tpu.config import SegmentConfig, SplitConfig
-from freddie_tpu.ops.segcore import load_segcore
-from freddie_tpu.stages.split import run_split
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import SegmentConfig, SplitConfig
+from freddie_jax.ops.segcore import load_segcore
+from freddie_jax.stages.split import run_split
+from freddie_jax.utils.sim import simulate
 
 eng = load_segcore()
 pytestmark = pytest.mark.skipif(eng is None, reason="segcore did not build")
@@ -41,7 +41,7 @@ def _tsv_set(outdir):
 def test_stage_byte_identical(split_dir, tmp_path, monkeypatch, consider_ends):
     """run_segment with the native engine == run_segment on the Python
     path, byte for byte, across every tint TSV (both consider_ends)."""
-    from freddie_tpu.stages import segment as seg
+    from freddie_jax.stages import segment as seg
 
     cfg = SegmentConfig(consider_ends=consider_ends)
     py_out = str(tmp_path / "py")
@@ -63,8 +63,8 @@ def test_stage_byte_identical(split_dir, tmp_path, monkeypatch, consider_ends):
 def test_load_matches_python_parse(split_dir):
     """segcore.load's tint metadata, weights and splice signal equal the
     Python parser + build_splice_signal exactly."""
-    from freddie_tpu.io.tsv import load_read_sequences, parse_split_tsv
-    from freddie_tpu.stages.segment import build_splice_signal
+    from freddie_jax.io.tsv import load_read_sequences, parse_split_tsv
+    from freddie_jax.stages.segment import build_splice_signal
 
     checked = 0
     for contig in sorted(os.listdir(split_dir)):
@@ -96,7 +96,7 @@ def test_load_matches_python_parse(split_dir):
                     got = np.frombuffer(got_b, dtype=np.float64)
                     assert np.array_equal(got, want)
                 # Coverage at a few candidate sets vs the Python op.
-                from freddie_tpu.ops.coverage import cumulative_coverage
+                from freddie_jax.ops.coverage import cumulative_coverage
 
                 for iv_idx, rows in enumerate(per_iv):
                     n_y = len(y_raws[iv_idx])
@@ -120,7 +120,7 @@ def test_load_matches_python_parse(split_dir):
 def test_finalize_error_falls_back(split_dir, tmp_path, monkeypatch):
     """A C-side failure in finalize degrades to the Python path for that
     tint; the stage still writes byte-identical output."""
-    from freddie_tpu.stages import segment as seg
+    from freddie_jax.stages import segment as seg
 
     cfg = SegmentConfig()
     py_out = str(tmp_path / "py")

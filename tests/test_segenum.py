@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from freddie_tpu.solver.brute import brute_force_optimum
-from freddie_tpu.solver.exact import ClusterInstance, ReadRow, solve_exact
-from freddie_tpu.solver.segenum import solve_segment_enum
+from freddie_jax.solver.brute import brute_force_optimum
+from freddie_jax.solver.exact import ClusterInstance, ReadRow, solve_exact
+from freddie_jax.solver.segenum import solve_segment_enum
 from tests.test_solver import random_instance
 
 

@@ -4,8 +4,8 @@ bit-identical results."""
 import numpy as np
 import pytest
 
-from freddie_tpu.solver.native import native_available, solve_segenum_native
-from freddie_tpu.solver.segenum import _solve_segment_enum_py
+from freddie_jax.solver.native import native_available, solve_segenum_native
+from freddie_jax.solver.segenum import _solve_segment_enum_py
 from tests.test_solver import random_instance
 
 pytestmark = pytest.mark.skipif(
@@ -36,7 +36,7 @@ def test_native_declines_large_mi():
 
 def test_native_extended_mi_matches_dfs_value():
     # Mi in 17..20: value must equal the read-DFS optimum.
-    from freddie_tpu.solver.exact import solve_exact
+    from freddie_jax.solver.exact import solve_exact
 
     rng = np.random.default_rng(7)
     inst = random_instance(rng, 8, 18)

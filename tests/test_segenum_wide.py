@@ -9,9 +9,9 @@ instances (Mi 21..23) are covered against the read-DFS optimum value."""
 import numpy as np
 import pytest
 
-from freddie_tpu.solver import segenum
-from freddie_tpu.solver.exact import solve_exact
-from freddie_tpu.solver.segenum import (
+from freddie_jax.solver import segenum
+from freddie_jax.solver.exact import solve_exact
+from freddie_jax.solver.segenum import (
     _solve_segment_enum_py,
     solve_segment_enum_wide,
 )
@@ -41,7 +41,7 @@ def clustered_instance(rng, N, M, k_true=3):
     """Reads clustered around a few true exon structures with small
     corrections -- the shape real Mi>20 instances take (many reads, few
     underlying isoforms), where the optimistic filter bites hard."""
-    from freddie_tpu.solver.exact import ClusterInstance, ReadRow
+    from freddie_jax.solver.exact import ClusterInstance, ReadRow
 
     trues = [rng.random(M) < 0.5 for _ in range(k_true)]
     rows = []
@@ -114,7 +114,7 @@ def test_two_phase_uses_wide_escalation(monkeypatch):
     exhausts the node budget and whose union closure exceeds the (zeroed)
     cap must be solved optimally via the wide escalation -- dispatch by
     content, no availability gate."""
-    from freddie_tpu.solver import two_phase as tp
+    from freddie_jax.solver import two_phase as tp
 
     rng = np.random.default_rng(11)
     inst = random_instance(rng, 16, 12)
@@ -139,7 +139,7 @@ def test_two_phase_uses_wide_escalation(monkeypatch):
 def test_two_phase_uses_closure_escalation(monkeypatch):
     """Same setup without the closure cap: the union-closure escalation
     fires first and returns the identical canonical answer."""
-    from freddie_tpu.solver import two_phase as tp
+    from freddie_jax.solver import two_phase as tp
 
     rng = np.random.default_rng(11)
     inst = random_instance(rng, 16, 12)

@@ -7,9 +7,9 @@ import os
 
 import pytest
 
-from freddie_tpu.config import SegmentConfig, SplitConfig
-from freddie_tpu.stages.split import run_split
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import SegmentConfig, SplitConfig
+from freddie_jax.stages.split import run_split
+from freddie_jax.utils.sim import simulate
 
 
 @pytest.fixture(scope="module")
@@ -35,7 +35,7 @@ def _tsv_set(outdir):
 def test_segment_polya_device_byte_identical(split_dir, tmp_path, monkeypatch):
     """Forcing the batched device polyA path produces TSVs byte-identical
     to the host annotator."""
-    from freddie_tpu.stages import segment as seg
+    from freddie_jax.stages import segment as seg
 
     host_out = str(tmp_path / "host")
     dev_out = str(tmp_path / "dev")
@@ -64,9 +64,9 @@ def test_solve_batch_device_uses_sharded_dispatch():
     import jax
     import numpy as np
 
-    from freddie_tpu.ops.segdp import DPProblem, solve_batch_device, solve_host
-    from freddie_tpu.ops.thresholds import ScaledThresholds
-    from freddie_tpu.parallel import mesh as mesh_mod
+    from freddie_jax.ops.segdp import DPProblem, solve_batch_device, solve_host
+    from freddie_jax.ops.thresholds import ScaledThresholds
+    from freddie_jax.parallel import mesh as mesh_mod
 
     assert jax.local_device_count() > 1
     rng = np.random.default_rng(7)
@@ -101,8 +101,8 @@ def test_streaming_chunks_and_flush_padding(tmp_path, monkeypatch):
     bucket's standard shape -- outputs must stay byte-identical to the
     all-at-once host solve. (A noisy simulation: the clean fixture's
     problems are all trivial and would never dispatch.)"""
-    from freddie_tpu.ops import segdp
-    from freddie_tpu.stages import segment as seg
+    from freddie_jax.ops import segdp
+    from freddie_jax.stages import segment as seg
 
     sim = simulate(
         seed=77, n_genes=8, isoforms_per_gene=3, reads_per_isoform=12,
@@ -122,11 +122,9 @@ def test_streaming_chunks_and_flush_padding(tmp_path, monkeypatch):
     dispatched = []
     orig = segdp.dispatch_batch_device
 
-    def spy(problems, thr, pad_p_to=8, pad_r_to=128, use_pallas=None,
-            pad_b_to=0, **kw):
+    def spy(problems, thr, pad_p_to=8, pad_r_to=128, pad_b_to=0, **kw):
         dispatched.append((len(problems), pad_b_to))
-        return orig(problems, thr, pad_p_to, pad_r_to, use_pallas, pad_b_to,
-                    **kw)
+        return orig(problems, thr, pad_p_to, pad_r_to, pad_b_to, **kw)
 
     monkeypatch.setattr(seg, "STREAM_CHUNK_MAX", 8)
     monkeypatch.setattr(seg, "DEVICE_MIN_WORK", 0)
@@ -158,8 +156,8 @@ def test_scale_overflow_host_fallback_collected(tmp_path, monkeypatch):
     collect those entries (they are NOT the 'already read back inline'
     sentinel) -- regression test for an assert-death where handles=None
     was overloaded for both meanings."""
-    from freddie_tpu.ops.segdp import solve_host
-    from freddie_tpu.stages import segment as seg
+    from freddie_jax.ops.segdp import solve_host
+    from freddie_jax.stages import segment as seg
 
     sim = simulate(
         seed=78, n_genes=6, isoforms_per_gene=3, reads_per_isoform=12,
@@ -203,7 +201,7 @@ def test_inflight_cap_byte_identical(split_dir, tmp_path, monkeypatch):
     """MAX_INFLIGHT_CHUNKS=1 (every chunk read back inline before the
     next dispatch) produces TSVs byte-identical to the default deep
     pipeline -- the cap only bounds device-resident memory."""
-    from freddie_tpu.stages import segment as seg
+    from freddie_jax.stages import segment as seg
 
     deep = str(tmp_path / "deep")
     seg.run_segment(split_dir, deep, SegmentConfig())

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from freddie_tpu.solver.brute import brute_force_optimum
-from freddie_tpu.solver.exact import ClusterInstance, ReadRow, solve_exact
+from freddie_jax.solver.brute import brute_force_optimum
+from freddie_jax.solver.exact import ClusterInstance, ReadRow, solve_exact
 
 
 def random_instance(rng, N, M, with_gaps=True, with_incomp=True):

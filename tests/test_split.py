@@ -5,12 +5,12 @@ import os
 
 import pytest
 
-from freddie_tpu.config import SplitConfig
-from freddie_tpu.core.cigar import alignment_intervals
-from freddie_tpu.io.bam import CDEL, CINS, CMATCH, CREF_SKIP, CSOFT_CLIP
-from freddie_tpu.io.tsv import parse_split_tsv, load_read_sequences
-from freddie_tpu.stages.split import run_split
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import SplitConfig
+from freddie_jax.core.cigar import alignment_intervals
+from freddie_jax.io.bam import CDEL, CINS, CMATCH, CREF_SKIP, CSOFT_CLIP
+from freddie_jax.io.tsv import parse_split_tsv, load_read_sequences
+from freddie_jax.stages.split import run_split
+from freddie_jax.utils.sim import simulate
 
 
 def test_alignment_intervals_basic():
@@ -97,7 +97,7 @@ def test_distribute_handles_lru_cap(sim_outputs, tmp_path):
     import filecmp
     import shutil
 
-    from freddie_tpu.stages.split import distribute_read_sequences
+    from freddie_jax.stages.split import distribute_read_sequences
 
     sim, outdir, counts = sim_outputs
     cdir = os.path.join(outdir, sim.contig)

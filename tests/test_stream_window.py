@@ -9,9 +9,9 @@ problem 0 and their outputs are discarded)."""
 
 import os
 
-from freddie_tpu.config import SegmentConfig, SplitConfig
-from freddie_tpu.stages.split import run_split
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import SegmentConfig, SplitConfig
+from freddie_jax.stages.split import run_split
+from freddie_jax.utils.sim import simulate
 
 import pytest
 
@@ -45,7 +45,7 @@ def _tsv_bytes(outdir):
 
 
 def test_windowed_streaming_byte_identical(split_dir, tmp_path, monkeypatch):
-    from freddie_tpu.stages import segment as seg
+    from freddie_jax.stages import segment as seg
 
     monkeypatch.setattr(seg, "DEVICE_MIN_WORK", 0)  # engage device path
     calls = {"n": 0}
@@ -72,7 +72,7 @@ def test_windowed_streaming_byte_identical(split_dir, tmp_path, monkeypatch):
 
 
 def test_window_env_override(split_dir, tmp_path, monkeypatch):
-    from freddie_tpu.stages import segment as seg
+    from freddie_jax.stages import segment as seg
 
     monkeypatch.setattr(seg, "DEVICE_MIN_WORK", 0)
     calls = {"n": 0}
@@ -99,7 +99,7 @@ def test_window_env_override(split_dir, tmp_path, monkeypatch):
 def test_auto_window_engages_on_huge_corpora(split_dir, tmp_path, monkeypatch):
     """Corpora with >= AUTO_WINDOW_MIN_TINTS tints get a default window
     even at stream_window=0 (memory bounded by default at 10M+ scale)."""
-    from freddie_tpu.stages import segment as seg
+    from freddie_jax.stages import segment as seg
 
     monkeypatch.setattr(seg, "DEVICE_MIN_WORK", 0)
     monkeypatch.setattr(seg, "AUTO_WINDOW_MIN_TINTS", 1)

@@ -10,9 +10,9 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-from freddie_tpu.config import PipelineConfig
-from freddie_tpu.stages.pipeline import run_pipeline
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.config import PipelineConfig
+from freddie_jax.stages.pipeline import run_pipeline
+from freddie_jax.utils.sim import simulate
 
 
 @pytest.fixture(scope="module")
@@ -31,7 +31,7 @@ def full_run(tmp_path_factory):
 
 def test_plot_produces_pdfs(full_run):
     sim, out, gtf = full_run
-    from freddie_tpu.stages.plot import run_plot
+    from freddie_jax.stages.plot import run_plot
 
     plot_dir = os.path.join(out, "plots")
     n = run_plot(
@@ -52,7 +52,7 @@ def test_plot_produces_pdfs(full_run):
 
 def test_segment_vis_pickle(full_run):
     sim, out, gtf = full_run
-    from freddie_tpu.stages.segment_vis import run_segment_vis
+    from freddie_jax.stages.segment_vis import run_segment_vis
 
     pkl = os.path.join(out, "segvis.pickle")
     run_segment_vis(
@@ -76,7 +76,7 @@ def _run_cli(args, timeout=180):
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + ":" + env.get("PYTHONPATH", "")
     proc = subprocess.run(
-        [sys.executable, "-m", "freddie_tpu.cli"] + args,
+        [sys.executable, "-m", "freddie_jax.cli"] + args,
         capture_output=True, text=True, env=env, timeout=timeout,
     )
     assert proc.returncode == 0, proc.stderr[-500:]
@@ -113,7 +113,7 @@ def test_plot_truth_tids_and_tails(full_run):
     tail info through load_tints (the reference's truth-coloring workflow,
     py/freddie_plot.py:359-376)."""
     sim, out, gtf = full_run
-    from freddie_tpu.stages.plot import load_tints, truth_tid
+    from freddie_jax.stages.plot import load_tints, truth_tid
 
     tints = load_tints(
         os.path.join(out, "cluster", sim.contig, f"cluster_{sim.contig}_0.tsv"),
@@ -159,7 +159,7 @@ def test_plot_pool_matches_serial(two_gene_run, tmp_path, monkeypatch):
     import glob
 
     sim, out, gtf = two_gene_run
-    from freddie_tpu.stages.plot import run_plot
+    from freddie_jax.stages.plot import run_plot
 
     seg_tsvs = sorted(glob.glob(os.path.join(out, "segment", "*", "segment_*.tsv")))
     clu_tsvs = sorted(glob.glob(os.path.join(out, "cluster", "*", "cluster_*.tsv")))

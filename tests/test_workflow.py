@@ -9,12 +9,12 @@ import sys
 
 import pytest
 
-from freddie_tpu.stages.workflow import (
+from freddie_jax.stages.workflow import (
     apply_overrides,
     load_workflow_config,
     run_workflow,
 )
-from freddie_tpu.utils.sim import simulate
+from freddie_jax.utils.sim import simulate
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -93,7 +93,7 @@ def test_yaml_config_and_cli(inputs, tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + ":" + env.get("PYTHONPATH", "")
     proc = subprocess.run(
-        [sys.executable, "-m", "freddie_tpu.cli", "workflow", cfg_path,
+        [sys.executable, "-m", "freddie_jax.cli", "workflow", cfg_path,
          "--set", "stages.segment.sigma=5.0"],
         capture_output=True, text=True, env=env, timeout=300,
     )

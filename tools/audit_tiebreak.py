@@ -24,13 +24,13 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from freddie_tpu.config import ClusterConfig, SegmentConfig, SplitConfig  # noqa: E402
-from freddie_tpu.io.tsv import parse_segment_tsv  # noqa: E402
-from freddie_tpu.solver.audit import audit_instance  # noqa: E402
-from freddie_tpu.stages.cluster import cluster_tint  # noqa: E402
-from freddie_tpu.stages.segment import run_segment  # noqa: E402
-from freddie_tpu.stages.split import run_split  # noqa: E402
-from freddie_tpu.utils.sim import simulate  # noqa: E402
+from freddie_jax.config import ClusterConfig, SegmentConfig, SplitConfig  # noqa: E402
+from freddie_jax.io.tsv import parse_segment_tsv  # noqa: E402
+from freddie_jax.solver.audit import audit_instance  # noqa: E402
+from freddie_jax.stages.cluster import cluster_tint  # noqa: E402
+from freddie_jax.stages.segment import run_segment  # noqa: E402
+from freddie_jax.stages.split import run_split  # noqa: E402
+from freddie_jax.utils.sim import simulate  # noqa: E402
 
 CONFIGS = {
     "clean": dict(

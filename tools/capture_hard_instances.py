@@ -49,17 +49,17 @@ def main():
     if not os.path.isdir(seg_dir):
         bam, fq, n_reads, _, _ = bench.build_dataset(args.workdir)
         print(f"[capture] {n_reads} reads simulated")
-        from freddie_tpu.config import SegmentConfig, SplitConfig
-        from freddie_tpu.stages.segment import run_segment
-        from freddie_tpu.stages.split import run_split
+        from freddie_jax.config import SegmentConfig, SplitConfig
+        from freddie_jax.stages.segment import run_segment
+        from freddie_jax.stages.split import run_split
 
         run_split(bam, [fq], split_dir, SplitConfig(threads=2))
         run_segment(split_dir, seg_dir, SegmentConfig(threads=4))
         print("[capture] split+segment done")
 
-    from freddie_tpu.config import ClusterConfig
-    from freddie_tpu.io.tsv import parse_segment_tsv
-    from freddie_tpu.stages import cluster as cl
+    from freddie_jax.config import ClusterConfig
+    from freddie_jax.io.tsv import parse_segment_tsv
+    from freddie_jax.stages import cluster as cl
 
     corpus = []
     orig_solve = cl._solve

@@ -49,13 +49,13 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    import freddie_tpu.io.tsv as tsv
-    import freddie_tpu.solver.lp_bound as lpb
-    import freddie_tpu.solver.native as nat
-    import freddie_tpu.solver.segenum as se
-    import freddie_tpu.solver.two_phase as tp
-    from freddie_tpu.config import ClusterConfig
-    from freddie_tpu.stages import cluster as cl
+    import freddie_jax.io.tsv as tsv
+    import freddie_jax.solver.lp_bound as lpb
+    import freddie_jax.solver.native as nat
+    import freddie_jax.solver.segenum as se
+    import freddie_jax.solver.two_phase as tp
+    from freddie_jax.config import ClusterConfig
+    from freddie_jax.stages import cluster as cl
 
     tsv.parse_segment_tsv = timed("parse", tsv.parse_segment_tsv)
     cl.parse_segment_tsv = tsv.parse_segment_tsv

@@ -19,12 +19,14 @@ import jax
 
 if "--device" not in sys.argv:
     jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+
+from freddie_jax.utils.procenv import use_compile_cache  # noqa: E402
+
+use_compile_cache()
 
 from bench import SIM, build_dataset, run_split_stage  # noqa: E402
-from freddie_tpu.config import SegmentConfig  # noqa: E402
-from freddie_tpu.stages.segment import run_segment  # noqa: E402
+from freddie_jax.config import SegmentConfig  # noqa: E402
+from freddie_jax.stages.segment import run_segment  # noqa: E402
 
 
 def main():

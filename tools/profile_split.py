@@ -18,9 +18,9 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from freddie_tpu.utils.sim import simulate
-from freddie_tpu.config import SplitConfig
-from freddie_tpu.stages.split import run_split
+from freddie_jax.utils.sim import simulate
+from freddie_jax.config import SplitConfig
+from freddie_jax.stages.split import run_split
 
 
 def main():

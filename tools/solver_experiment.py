@@ -35,9 +35,9 @@ def main():
     with open(args.corpus, "rb") as f:
         corpus = pickle.load(f)
 
-    from freddie_tpu.solver.exact import solve_exact
-    from freddie_tpu.solver.native import solve_exact_native
-    from freddie_tpu.solver.two_phase import solve_two_phase
+    from freddie_jax.solver.exact import solve_exact
+    from freddie_jax.solver.native import solve_exact_native
+    from freddie_jax.solver.two_phase import solve_two_phase
 
     engines = dict(
         two_phase=solve_two_phase,

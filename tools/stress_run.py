@@ -47,8 +47,8 @@ def cmd_gen(args):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from freddie_tpu.io.bam import BamReader, BamRecord, BamWriter
-    from freddie_tpu.utils.sim import simulate
+    from freddie_jax.io.bam import BamReader, BamRecord, BamWriter
+    from freddie_jax.utils.sim import simulate
 
     os.makedirs(args.out, exist_ok=True)
     fq_path = os.path.join(args.out, "stress.fastq")
@@ -108,11 +108,11 @@ def cmd_run(args):
         jax.config.update("jax_platforms", "cpu")
     import dataclasses
 
-    from freddie_tpu.config import PipelineConfig
-    from freddie_tpu.stages.cluster import run_cluster
-    from freddie_tpu.stages.isoforms import run_isoforms
-    from freddie_tpu.stages.segment import run_segment
-    from freddie_tpu.stages.split import run_split
+    from freddie_jax.config import PipelineConfig
+    from freddie_jax.stages.cluster import run_cluster
+    from freddie_jax.stages.isoforms import run_isoforms
+    from freddie_jax.stages.segment import run_segment
+    from freddie_jax.stages.split import run_split
 
     cfg = PipelineConfig()
     cfg = dataclasses.replace(
